@@ -1,13 +1,13 @@
-"""dpgo_tpu — TPU-native distributed certifiably-correct pose-graph optimization.
+"""dpgo_tpu — distributed certifiably-correct pose-graph optimization in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of mit-acl/dpgo
+A from-scratch JAX/XLA re-design of the capabilities of mit-acl/dpgo
 (synchronous + asynchronous Riemannian block-coordinate descent over rank-lifted
 SE(d) pose graphs, Nesterov acceleration, chordal/odometry initialization, GNC
 outlier-robust optimization, multi-robot protocol semantics).
 
 Design stance (vs. the C++/Eigen/ROPTLIB reference):
   * lifted poses are batched arrays X: (n, r, d+1) — one leading pose axis so every
-    manifold op vectorizes over the VPU/MXU instead of per-pose loops
+    manifold op is one batched array op instead of a per-pose loop
     (reference: LiftedSEManifold.cpp:34-45 OpenMP loop).
   * the pose-graph connection Laplacian is never materialized as a scalar sparse
     matrix; it lives as (d+1)x(d+1) block arrays + edge index lists, and the hot

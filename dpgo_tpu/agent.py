@@ -1,6 +1,6 @@
 """PGOAgent: the distributed RBCD protocol state machine.
 
-TPU-native counterpart of the reference's PGOAgent (include/DPGO/PGOAgent.h,
+Array-native counterpart of the reference's PGOAgent (include/DPGO/PGOAgent.h,
 src/PGOAgent.cpp). Protocol semantics (state machine, pose/status exchange,
 Nesterov acceleration, GNC weight scheduling, elastic membership, termination)
 are host-side Python; all numerics run as jitted programs over static-shaped

@@ -1,7 +1,7 @@
 """Relative SE(d) measurements: scalar struct and struct-of-arrays forms.
 
 The reference stores measurements as an array-of-structs
-(include/DPGO/RelativeSEMeasurement.h). For TPU we keep a light host-side
+(include/DPGO/RelativeSEMeasurement.h). Here we keep a light host-side
 struct for protocol-level bookkeeping and convert to a struct-of-arrays
 (`EdgeArrays`) before any computation, so every edge-parallel op is a batched
 array op.

@@ -1,10 +1,10 @@
-"""Block-tridiagonal SPD solver via cyclic reduction — the TPU-native
+"""Block-tridiagonal SPD solver via cyclic reduction — the batched
 replacement for the reference's Cholmod LDL^T preconditioner
 (reference: src/PoseGraph.cpp:598-613, applied per tCG iteration at
 src/QuadraticProblem.cpp:56-69).
 
 The reference factors the FULL sparse matrix (Q + 0.1 I). An exact sparse
-LDL^T is a sequential, pointer-chasing algorithm with no good TPU mapping.
+LDL^T is a sequential, pointer-chasing algorithm that batches poorly.
 Instead we factor the *block-tridiagonal part* of (Q + 0.1 I): the odometry
 chain's full (d+1)x(d+1) block coupling plus every edge's diagonal
 contribution. This matrix is provably SPD (it is a sum of per-edge PSD terms
@@ -134,15 +134,15 @@ class BandedFactor:
     """Exact banded factorization of (Q + shift I) under an RCM relabeling.
 
     The reference preconditions tCG with a Cholmod LDL^T of the FULL sparse
-    matrix (PoseGraph.cpp:598-613). Sparse LDL^T is pointer-chasing with no
-    TPU mapping — but pose ids are arbitrary labels, and under a reverse
+    matrix (PoseGraph.cpp:598-613). Sparse LDL^T is pointer-chasing and
+    batches poorly — but pose ids are arbitrary labels, and under a reverse
     Cuthill-McKee relabeling real pose graphs collapse to small bandwidth
     (ais2klinik: 15104 -> 34; city10000: 9480 -> 182; CSAIL: 1025 -> 19).
     Grouping s >= bandwidth consecutive relabeled poses into superblocks
     makes the matrix block-TRIDIAGONAL in (s*dh x s*dh) superblocks — every
     edge lands in the same or adjacent superblock — so the existing cyclic
-    reduction factors it EXACTLY: O(log(n/s)) depth, MXU-sized blocks.
-    Cholmod-LDL^T parity, the TPU way.
+    reduction factors it EXACTLY: O(log(n/s)) depth in dense batched
+    blocks, with Cholmod-LDL^T parity.
 
     perm: (nb*s,) new -> old pose id (padded tail entries repeat pose 0 and
     are masked by pad handling); invp: (n,) old -> new.

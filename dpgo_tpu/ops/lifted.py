@@ -74,13 +74,12 @@ def stiefel_proj_tangent(Y: jax.Array, V: jax.Array) -> jax.Array:
     P_Y(V) = V - Y sym(Y^T V).
 
     Y^T V is spelled as a direct dot_general contracting the r axis of both
-    operands (no transpose HLO): explicit transposes feeding dots trip an
-    XLA:TPU TransposeFolding crash/fixpoint blowup in composed programs, and
-    the einsum form is also faster."""
+    operands (no transpose HLO feeding the dot)."""
     # HIGHEST precision unconditionally: the input's NORMAL component is
     # O(1) even when the projected result is tiny (e.g. the Euclidean
-    # gradient at a critical point), so TPU's default bf16 f32-matmul passes
-    # would leak ~1e-2 of the normal component into the "tangent" output —
+    # gradient at a critical point), so a reduced-precision f32 product
+    # (TF32 on a GPU, ~1e-3 relative) would leak that much of the normal
+    # component into the "tangent" output —
     # fatal for gradient-norm certification. These are per-pose (r,d)-sized
     # matmuls; HIGHEST costs nothing measurable.
     hi = jax.lax.Precision.HIGHEST
@@ -148,19 +147,18 @@ def project_stiefel_ns(M: jax.Array, num_iters: int = 16) -> jax.Array:
     the iteration unconditionally safe. 8 iterations reach ~1e-13 on
     well-conditioned inputs; the default 16 covers sigma_min down to ~0.1.
 
-    Batched matmuls only — 2x faster than batched SVD in f64 on TPU and 40x
-    in f32, and avoids an XLA:TPU crash on large batched f32 SVDs. Used for
-    the Nesterov Y/V projections in mixed-precision mode.
+    Batched matmuls only (no iterative batched SVD). Used for the Nesterov
+    Y/V projections in mixed-precision mode.
     """
     d = M.shape[-1]
     s = jnp.sqrt(jnp.sum(M * M, axis=(-2, -1), keepdims=True))
     s = jnp.maximum(s, jnp.finfo(M.dtype).tiny)
     Y0 = M / s
 
-    # HIGHEST matmul precision is required here: TPU f32 matmuls default to
-    # bf16 MXU passes (~1e-2 relative), and the quadratic NS iteration
-    # amplifies that to ~1e-2 orthonormality error. With full-f32 passes the
-    # result is orthonormal to ~3e-7. (Only these two einsums need it — the
+    # HIGHEST matmul precision is required here: with the default precision
+    # a GPU may run f32 products in TF32 (~1e-3 relative), and the quadratic
+    # NS iteration leaves that as orthonormality error. With full-f32
+    # products the result is orthonormal to ~3e-7. (Only these two einsums need it — the
     # tCG recurrences tolerate default precision because the trust region
     # bounds step-quality loss.)
     hi = jax.lax.Precision.HIGHEST
@@ -183,8 +181,7 @@ def project_stiefel_ns_mixed(
     """Newton-Schulz polar with the bulk of the iteration in f32 and a short
     full-precision polish.
 
-    f64 emulation of tiny-matmul chains on TPU is pathological (~30x f32 for
-    this kernel at 10k poses), but NS converges quadratically and its fixed
+    NS converges quadratically and its fixed
     points are exactly the orthonormal matrices: running 16 iterations in
     f32 lands ~3e-7 from the polar factor, and 2 refinement iterations in
     the input dtype drive orthonormality to ~1e-14 while staying within the
@@ -230,8 +227,10 @@ def fixed_stiefel_variable(d: int, r: int, dtype=jnp.float64) -> jax.Array:
 # ---------------------------------------------------------------------------
 
 def inner(a: jax.Array, b: jax.Array) -> jax.Array:
-    """Euclidean (Frobenius) inner product over the full product variable."""
-    return jnp.vdot(a, b)
+    """Euclidean (Frobenius) inner product over the full product variable.
+    HIGHEST: these scalars drive the tCG recurrences and every gradnorm
+    test, so no backend may take them in a reduced-precision mode."""
+    return jnp.vdot(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def norm(a: jax.Array) -> jax.Array:

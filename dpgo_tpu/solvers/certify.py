@@ -1,4 +1,4 @@
-"""Global-optimality certification + the Riemannian staircase (TPU-native).
+"""Global-optimality certification + the Riemannian staircase (matrix-free).
 
 The reference implements the algorithms of Tian et al., *Distributed
 Certifiably Correct Pose-Graph Optimization* (T-RO 2021) — rank-lifted RBCD —
@@ -7,7 +7,7 @@ gradient norm alone (`/root/reference/src/PGOAgent.cpp:846-878`) and relies
 on the rank lift r > d for correctness in theory. This module supplies the
 missing capability the papers name: an SE-Sync / Cartan-Sync style dual
 certificate, evaluated matrix-free so it runs on the same blocked-sparse
-`q_matvec` the solvers use (MXU-friendly, no sparse factorization).
+`q_matvec` the solvers use (batched dense blocks, no sparse factorization).
 
 Math. The centralized lifted problem (every edge private, no linear term) is
 

@@ -4,8 +4,8 @@ Replaces the reference's SPQR-based sparse least squares
 (reference: src/DPGO_solver.cpp:220-303, src/DPGO_utils.cpp:346-462) with
 matrix-free preconditioned CG on the normal equations — the B1/B2/B3 matrices
 of SE-Sync eq. (69) are never materialized; their normal-equation operators
-are edge-gather + batched small-matmul + segment-sum, which is exactly the
-shape TPUs like.
+are edge-gather + batched small-matmul + segment-sum, which batches on an
+accelerator.
 
 Rotation stage:   min_{Rot_i in R^{d x d}, Rot_0 = I}  sum_e kappa_e ||Rot_i R_e - Rot_j||_F^2
 Translation stage: min_{t_i, t_0 = 0}                  sum_e tau_e   ||t_j - t_i - Rot_i t_e||^2
@@ -34,10 +34,8 @@ from dpgo_tpu.ops import lifted
 def _pcg(A, b, M, x0, tol: float, maxiter: int):
     """Minimal preconditioned conjugate gradients on a single array pytree.
 
-    Replaces jax.scipy.sparse.linalg.cg: same math, but a plain
-    lax.while_loop whose body structure the XLA:TPU compiler handles in every
-    dtype (the scipy wrapper's tree-based formulation triggers a TPU compiler
-    crash in f32 for our scatter-add operators)."""
+    Replaces jax.scipy.sparse.linalg.cg: same math, as a plain
+    lax.while_loop over one array."""
     r0 = b - A(x0)
     z0 = M(r0)
     gamma0 = jnp.vdot(r0, z0).real
@@ -176,8 +174,8 @@ def chordal_initialization_arrays(
     (reference: DPGO_solver.cpp:220-269).
 
     cg_dtype: optionally run the two PCG stages in reduced precision (e.g.
-    jnp.float32) — an *initialization* tolerates ~1e-4 accuracy, and on TPU
-    f64 is emulated at several times the f32 cost. The SO(d) projection stays
+    jnp.float32) — an *initialization* tolerates ~1e-4 accuracy. The SO(d)
+    projection stays
     in `dtype` (batched SVD). Results are returned in `dtype`.
     """
     if edges.m == 0:

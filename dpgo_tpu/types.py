@@ -1,6 +1,6 @@
 """Core types and parameter structs.
 
-TPU-native counterparts of the reference's parameter/ID types
+Counterparts of the reference's parameter/ID types
 (reference: include/DPGO/DPGO_types.h, include/DPGO/PGOAgent.h:47-240,
 include/DPGO/DPGO_robust.h:20-77). These are *host-side* (static) dataclasses:
 they configure jitted programs and are hashable so they can be passed as static

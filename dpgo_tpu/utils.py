@@ -1,4 +1,4 @@
-"""Small host-side utilities: timing and matrix IO.
+"""Small host-side utilities: timing, matrix IO and the compile cache path.
 
 Counterparts of the reference's SimpleTimer and matrix CSV writers
 (reference: DPGO_utils.h:23-47, DPGO_utils.cpp:48-98).
@@ -6,10 +6,22 @@ Counterparts of the reference's SimpleTimer and matrix CSV writers
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def compile_cache_dir(environ: Mapping[str, str] = os.environ) -> str:
+    """JAX's persistent compile-cache directory: $JAX_COMPILATION_CACHE_DIR
+    when set, else the fixed in-repo `.jax_cache`. The path is part of the
+    cache key, so it never depends on a temporary name, a pid or the time."""
+    return environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        REPO_ROOT, ".jax_cache"
+    )
 
 
 class SimpleTimer:

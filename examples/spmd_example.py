@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""TPU-native SPMD example: the whole multi-agent optimization as one XLA
+"""SPMD example: the whole multi-agent optimization as one XLA
 program over a device mesh.
 
 Usage: python examples/spmd_example.py [# agents] [input .g2o file] [mode]
@@ -7,7 +7,7 @@ Usage: python examples/spmd_example.py [# agents] [input .g2o file] [mode]
 mode: all (parallel block updates, default) | greedy | uniform | async
 (semantic-async: Poisson-thinned per-agent updates; acceleration off).
 With multiple devices the agents shard over the mesh and public-pose
-exchange rides the ICI; on one device the same program runs fully batched.
+exchange is an all_gather over the mesh; on one device the same program runs fully batched.
 """
 
 import os

@@ -11,7 +11,7 @@ rounds (cheap rounds may need more of them). Runs the delta engine only
 (phase 2 of the certified pipeline — it dominates: 686/686 rounds at 100k),
 from the same chordal init, stopping at device gradnorm < 0.9e-2 exactly
 like run_delta_certified. Size-transferable in direction, not in constant:
-verify the winner at 100k on the TPU.
+verify the winner at 100k on the device.
 
 Usage: python scripts/tune_schedule.py [num_poses] [cfg ...]
   cfg = restart:nesterov_n:tcg  (nesterov_n empty = num_agents)
@@ -61,13 +61,9 @@ def main():
     problem, ranges = spmd.build_spmd_problem(
         meas, n, num_agents=num_agents, r=5, dtype=jnp.float32
     )
-    cache = f"/tmp/chordal_grid3d_{num_poses}_{seed}.npz"
-    if os.path.exists(cache):
-        T = np.load(cache)["T"]
-    else:
-        from dpgo_tpu.solvers import chordal as chordal_mod
-        T = np.asarray(chordal_mod.chordal_initialization_arrays(edges, n=n))
-        np.savez(cache, T=T)
+    from dpgo_tpu.solvers import chordal as chordal_mod
+
+    T = np.asarray(chordal_mod.chordal_initialization_arrays(edges, n=n))
     Y_lift = np.asarray(lifted.fixed_stiefel_variable(3, 5))
     X0_64 = np.einsum("rd,nde->nre", Y_lift, T)[order].astype(np.float64)
     state0 = spmd.initial_state(problem, X0_64, ranges)

@@ -5,8 +5,8 @@ setup(
     name="dpgo_tpu",
     version="0.1.0",
     description=(
-        "TPU-native distributed certifiably-correct pose-graph optimization "
-        "(JAX/XLA/Pallas re-design of mit-acl/dpgo)"
+        "Distributed certifiably-correct pose-graph optimization in JAX "
+        "(a re-design of mit-acl/dpgo)"
     ),
     packages=find_packages(include=["dpgo_tpu", "dpgo_tpu.*"]),
     python_requires=">=3.10",

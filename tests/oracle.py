@@ -2,7 +2,7 @@
 
 These re-derive the reference's data matrices with dense numpy, following
 the *published algorithm* (SE-Sync connection Laplacian; reference:
-DPGO_utils.cpp:272-344, PoseGraph.cpp:381-580) so the TPU edge-based
+DPGO_utils.cpp:272-344, PoseGraph.cpp:381-580) so the edge-based
 operators can be validated against an independent construction.
 """
 
@@ -13,24 +13,25 @@ import numpy as np
 
 def dense_connection_laplacian(measurements, num_poses: int) -> np.ndarray:
     """Q = A Omega A^T for private measurements, dense (d+1)n x (d+1)n
-    (reference: DPGO_utils.cpp:272-344)."""
+    (reference: DPGO_utils.cpp:272-344), summed edge by edge as
+    sum_k A_k Omega_k A_k^T so no (d+1)n x (d+1)m incidence is formed."""
     d = measurements[0].d
     dh = d + 1
-    n = num_poses
-    m = len(measurements)
-    A = np.zeros((dh * n, dh * m))
-    Om = np.zeros(dh * m)
-    for k, meas in enumerate(measurements):
+    Q = np.zeros((dh * num_poses, dh * num_poses))
+    for meas in measurements:
         i, j = meas.p1, meas.p2
         T = np.zeros((dh, dh))
         T[:d, :d] = meas.R
         T[:d, d] = meas.t
         T[d, d] = 1.0
-        A[i * dh : (i + 1) * dh, k * dh : (k + 1) * dh] = -T
-        A[j * dh : (j + 1) * dh, k * dh : (k + 1) * dh] = np.eye(dh)
-        Om[k * dh : k * dh + d] = meas.weight * meas.kappa
-        Om[k * dh + d] = meas.weight * meas.tau
-    return A @ np.diag(Om) @ A.T
+        om = np.full(dh, meas.weight * meas.kappa)
+        om[d] = meas.weight * meas.tau
+        # edge column block of A: -T at pose i, I at pose j
+        Ak = {i: -T, j: np.eye(dh)}
+        for a, Aa in Ak.items():
+            for b, Ab in Ak.items():
+                Q[a * dh:(a + 1) * dh, b * dh:(b + 1) * dh] += (Aa * om) @ Ab.T
+    return Q
 
 
 def dense_f(Xf: np.ndarray, Q: np.ndarray, G: np.ndarray) -> float:

@@ -1,5 +1,5 @@
 """Cyclic-reduction block-tridiagonal solver (ops/block_tridiag.py) — the
-TPU-native replacement for the reference's Cholmod LDL^T preconditioner
+batched replacement for the reference's Cholmod LDL^T preconditioner
 (reference: src/PoseGraph.cpp:598-613)."""
 
 import numpy as np

@@ -2,7 +2,7 @@
 
 The reference never evaluates the dual certificate its papers are named for
 (it stops on gradient norm, PGOAgent.cpp:846-878); these tests pin down the
-TPU-native implementation: matrix-free S = Q - LambdaHat, Lanczos lambda_min
+implementation: matrix-free S = Q - LambdaHat, Lanczos lambda_min
 against a dense oracle, certification of converged solves, and the staircase
 escape from a deliberately suboptimal critical point.
 """

@@ -44,7 +44,7 @@ def solve_case(name, tol):
     # cyclic reduction — Cholmod-LDL^T parity, PoseGraph.cpp:598-613), the
     # production centralized configuration since its introduction.
     # ais2klinik (the conditioning stress case) gets a bounded budget here —
-    # its absolute-gradnorm certification runs long offline (docs/PERF.md).
+    # its absolute-gradnorm certification runs long offline.
     iters = 200
     qd = quadratic.build_quadratic_data(
         problem, jnp.zeros((1, r, d + 1)), r=r, precond="auto"
@@ -144,8 +144,8 @@ def test_ais2klinik_certified_absolute():
     """ais2klinik at the reference's ABSOLUTE local tolerance (gradnorm
     < 1e-2, DPGO_types.h:56) — the one dataset whose conditioning puts that
     tolerance outside any in-test iteration budget (the fixed-0.1-shift
-    LDL^T preconditioner the reference uses crawls on this spectrum too;
-    docs/PERF.md). The offline certification (scripts/ais_certify.py:
+    LDL^T preconditioner the reference uses crawls on this spectrum too).
+    The offline certification (scripts/ais_certify.py:
     exact-banded preconditioner at shift=1e-5, crash-checkpointed blocks)
     converged to gradnorm 6.32e-3 / cost 188.501834; its final iterate is
     committed and re-evaluated here with the CURRENT pipeline, so any

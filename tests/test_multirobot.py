@@ -4,15 +4,8 @@ MultiRobotExample flow on a partitioned dataset)."""
 import numpy as np
 import pytest
 
-from dpgo_tpu.io.g2o import read_g2o_file
 from dpgo_tpu.parallel.simulation import run_synchronous_rbcd
 from dpgo_tpu.types import PGOAgentParameters, ROptParameters
-
-
-@pytest.fixture(scope="module")
-def tiny_grid():
-    meas, n = read_g2o_file("/root/reference/data/tinyGrid3D.g2o")
-    return meas, n
 
 
 def _params(num_robots, accel):

@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from dpgo_tpu import quadratic
 from dpgo_tpu.measurements import EdgeArrays, homogeneous
@@ -392,3 +393,31 @@ def test_choose_band_offsets_cost_model():
     j_fc = np.concatenate([i1 + 1, np.arange(40) + 500])
     offs_fc = quadratic.choose_band_offsets(i_fc, j_fc, n=n)
     assert set(offs_fc) == {1, 500}, offs_fc
+
+
+@pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32])
+@pytest.mark.parametrize("d", [2, 3])
+def test_q_matvec_scatter_path_matches_dense_at_scale(d, dtype):
+    """The gather/scatter path of q_matvec at >= 4096 off-lane edges (the
+    shapes where a custom segment-sum kernel once replaced the scatter)
+    against the dense oracle, in f64 and f32."""
+    rng = np.random.default_rng(20 + d)
+    n, r = 1024, d + 2
+    meas, _ = oracle.random_measurements(rng, n, d, extra_lc=4400)
+    edges = EdgeArrays.from_measurements(meas)
+    problem = quadratic.from_private_measurements(edges, n=n, d=d,
+                                                  dtype=dtype)
+    qd = quadratic.build_quadratic_data(
+        problem, jnp.zeros((1, r, d + 1), dtype), r=r
+    )
+    assert qd.off_E.shape[0] >= 4096
+    Qdense = oracle.dense_connection_laplacian(meas, n)
+    V = rng.standard_normal((n, r, d + 1))
+    out = np.asarray(quadratic.q_matvec(qd, jnp.asarray(V, dtype)),
+                     np.float64)
+    assert out.dtype == np.float64 and out.shape == V.shape
+    out_dense = oracle.unflat(oracle.flat(V) @ Qdense, n, d)
+    scale = np.abs(out_dense).max()
+    # f32: inputs rounded to 2^-24 and ~deg-term sums per row
+    atol = 1e-10 * scale if dtype == jnp.float64 else 2e-5 * scale
+    np.testing.assert_allclose(out, out_dense, rtol=0, atol=atol)

@@ -171,7 +171,7 @@ def test_rtr_solve_auto_probe_converges():
     Y0 = lifted.identity_lifted(n, r, d)
     Y, stats = rtr_mod.rtr_solve_auto(
         problem, Y0, gradnorm_tol=1e-6, max_iterations=50, max_inner=100,
-        probe_iterations=50, attach_csr=False,
+        probe_iterations=50,
     )
     assert float(stats.gnorm_opt) < 1e-6
     assert lifted.check_stiefel(np.asarray(Y)[:, :, :d])
@@ -190,7 +190,7 @@ def test_rtr_solve_auto_escalates_on_stall():
     # probe_iterations=1 with a starved inner budget forces a measured stall
     Y, stats = rtr_mod.rtr_solve_auto(
         problem, Y0, gradnorm_tol=1e-8, max_iterations=200, max_inner=100,
-        probe_iterations=1, attach_csr=False,
+        probe_iterations=1,
     )
     assert float(stats.gnorm_opt) < 1e-8
     assert int(stats.iterations) >= 2  # both phases ran

@@ -1,7 +1,7 @@
 """Unrolled-tCG parity: small static caps run masked-unrolled (rtr._TCG_UNROLL)
 instead of lax.while_loop — the fast path for the tiny-block delta rounds
-(city2d tcg cap 3) where while_loop iteration boundaries dominate the round
-(docs/PERF.md round-5 roofline). These tests pin the two paths to the same
+(city2d tcg cap 3) where while_loop iteration boundaries are fusion
+barriers. These tests pin the two paths to the same
 trajectory: identical iteration counts / boundary flags, and eta/Heta equal
 to ~1 ulp (XLA may re-fuse across the unrolled steps; the operations and
 their order are otherwise identical)."""
@@ -11,7 +11,6 @@ import numpy as np
 import pytest
 
 from dpgo_tpu import quadratic
-from dpgo_tpu.io.g2o import read_g2o_file
 from dpgo_tpu.measurements import EdgeArrays
 from dpgo_tpu.ops import lifted
 from dpgo_tpu.solvers import chordal as chordal_mod
@@ -19,8 +18,8 @@ from dpgo_tpu.solvers import rtr as rtr_mod
 
 
 @pytest.fixture(scope="module")
-def tcg_inputs():
-    meas, n = read_g2o_file("/root/reference/data/smallGrid3D.g2o")
+def tcg_inputs(small_grid):
+    meas, n = small_grid
     d, r = meas[0].d, 5
     edges = EdgeArrays.from_measurements(meas)
     problem = quadratic.from_private_measurements(edges, n=n, d=d)

@@ -7,7 +7,6 @@ import pytest
 from jax.sharding import Mesh
 
 from dpgo_tpu import quadratic
-from dpgo_tpu.io.g2o import read_g2o_file
 from dpgo_tpu.ops import lifted
 from dpgo_tpu.parallel import spmd
 from dpgo_tpu.parallel.simulation import build_central_evaluation
@@ -15,8 +14,8 @@ from dpgo_tpu.solvers.pgo import chordal_initialization
 
 
 @pytest.fixture(scope="module")
-def small_setup():
-    meas, n = read_g2o_file("/root/reference/data/tinyGrid3D.g2o")
+def small_setup(tiny_grid):
+    meas, n = tiny_grid
     r = 5
     problem, ranges = spmd.build_spmd_problem(meas, n, num_agents=4, r=r)
     T = chordal_initialization(meas)
@@ -58,7 +57,7 @@ def test_all_mode_converges_single_device(small_setup):
 
 
 def test_mixed_precision_spmd_converges(small_setup):
-    """The full TPU mixed-precision configuration (f32 tCG inner loops,
+    """The full mixed-precision configuration (f32 tCG inner loops,
     mixed Newton-Schulz projections, inner-precision control matvecs with
     the cancellation-free decrease identity, adaptive restart) reaches the
     same tolerance and cost as the f64 path."""
@@ -155,9 +154,9 @@ def test_greedy_sharded_matches_single_device(small_setup):
     )
 
 
-def test_sharded_8_devices_smallgrid():
-    """8 agents over the full 8-device mesh on smallGrid3D."""
-    meas, n = read_g2o_file("/root/reference/data/smallGrid3D.g2o")
+def test_sharded_8_devices_smallgrid(small_grid):
+    """8 agents over the full 8-device mesh on the 125-pose grid world."""
+    meas, n = small_grid
     r = 5
     problem, ranges = spmd.build_spmd_problem(meas, n, num_agents=8, r=r)
     T = chordal_initialization(meas)
@@ -178,7 +177,7 @@ def test_sharded_8_devices_smallgrid():
 
 
 def test_spmd_gnc_rejects_outlier():
-    """TPU-native distributed GNC: the jitted reweighting drives the outlier
+    """Distributed GNC: the jitted reweighting drives the outlier
     shared edge's weight to ~0 while keeping inliers high."""
     from tests.test_distributed_robust import _two_robot_world
 
@@ -261,10 +260,10 @@ def test_spmd_se2():
     assert lifted.check_stiefel(X[:, :, :2])
 
 
-def test_sharded_two_agents_per_device():
+def test_sharded_two_agents_per_device(small_grid):
     """8 agents over a 4-device mesh (A=2 per device): the vmapped local
     solve + collectives must agree with the single-device path."""
-    meas, n = read_g2o_file("/root/reference/data/smallGrid3D.g2o")
+    meas, n = small_grid
     r = 5
     problem, ranges = spmd.build_spmd_problem(meas, n, num_agents=8, r=r)
     T = chordal_initialization(meas)
@@ -285,12 +284,13 @@ def test_sharded_two_agents_per_device():
     np.testing.assert_allclose(float(m_l.gradnorm), float(m_s.gradnorm), rtol=1e-8)
 
 
-def test_backward_edges_objective_matches_central():
+def test_backward_edges_objective_matches_central(small_grid):
     """Regression (ADVICE r2 high): backward private edges (p2 < p1) must not
     be flipped — the lifted translation cost is not reversal-invariant. On
-    smallGrid3D (33 backward edges) the SPMD objective/gradient must equal
-    the centralized evaluation exactly."""
-    meas, n = read_g2o_file("/root/reference/data/smallGrid3D.g2o")
+    the 125-pose grid world (a third of its loop closures stored backward)
+    the SPMD objective/gradient must equal the centralized evaluation
+    exactly."""
+    meas, n = small_grid
     r = 5
     problem, ranges = spmd.build_spmd_problem(meas, n, num_agents=4, r=r)
     # at least one backward private edge survives partitioning and is laneable
@@ -311,12 +311,12 @@ def test_backward_edges_objective_matches_central():
     np.testing.assert_allclose(float(metrics.gradnorm), gnorm_c, rtol=1e-9)
 
 
-def test_spmd_elastic_membership():
+def test_spmd_elastic_membership(small_grid):
     """SPMD-path elastic membership (VERDICT r2 #4): a robot deactivates
     mid-run on the 8-device mesh — its block freezes, its shared edges drop
     from the team objective, the remaining team keeps converging — then
     reactivates and the full team converges."""
-    meas, n = read_g2o_file("/root/reference/data/smallGrid3D.g2o")
+    meas, n = small_grid
     r = 5
     problem, ranges = spmd.build_spmd_problem(meas, n, num_agents=8, r=r)
     T = chordal_initialization(meas)
@@ -359,12 +359,12 @@ def test_spmd_elastic_membership():
     assert lifted.check_stiefel(X[:, :, :3])
 
 
-def test_spmd_async_mode():
+def test_spmd_async_mode(tiny_grid):
     """Semantic-async SPMD (VERDICT r2 #5): Poisson-thinned per-agent update
     masks inside the bulk-synchronous round (RA-L 2020 update model,
     reference host-thread version PGOAgent.cpp:486-499). Converges on the
     mesh; acceleration is rejected as in the reference (:477)."""
-    meas, n = read_g2o_file("/root/reference/data/tinyGrid3D.g2o")
+    meas, n = tiny_grid
     r = 5
     problem, ranges = spmd.build_spmd_problem(meas, n, num_agents=4, r=r)
     T = chordal_initialization(meas)
